@@ -12,7 +12,7 @@
 // (the numpy path re-argsorts up to n keys per round).
 //
 // Reference counterpart: none — the reference has no cluster index;
-// this is runtime support for the TPU-native two-level structure.
+// this is runtime support for the two-level cluster structure.
 
 #include <cstdint>
 #include <vector>

@@ -3,12 +3,13 @@
 // MSTk: union-find Kruskal with a per-vertex degree cap, run independently
 // per cluster-tree leaf).
 //
-// The TPU computes each leaf's candidate edges (top-m per point, sorted by
+// The device computes each leaf's candidate edges (top-m per point, sorted by
 // weight); this native routine runs the inherently sequential union-find
 // pass for all leaves in parallel on host cores (the reference's
 // parallel-across-leaves / sequential-within-leaf structure).
 //
-// Build: g++ -O3 -march=native -shared -fPIC -fopenmp kruskal.cpp -o libparlayann_native.so
+// Built on first use by parlayann_tpu/native.py (g++ -O3 -shared -fPIC
+// -fopenmp, into a file named for the sources, flags and host).
 
 #include <cstdint>
 #include <cstring>

@@ -1,4 +1,4 @@
-"""parlayann_tpu — a TPU-native graph-ANN framework (JAX/XLA/Pallas).
+"""parlayann_tpu — a data-parallel graph-ANN framework in JAX.
 
 A from-scratch rebuild of the capabilities of ParlayANN (landrumb/ParlayANN):
 batch-parallel construction and querying of graph-based approximate-nearest-
@@ -6,18 +6,19 @@ neighbor indices — Vamana/DiskANN, HNSW, HCNNG, pyNNDescent — plus range
 search, scalar/bit/JL quantization with filtered + reranked search, exact
 ground-truth tooling, and a recall/QPS benchmark harness.
 
-Design (TPU-first, not a port):
-  * vectors  = HBM-resident ``(n_pad, d)`` matrices (one per precision tier)
+Design (batch-parallel on one accelerator, not a port):
+  * vectors  = device-resident ``(n_pad, d)`` matrices (one per precision
+    tier)
   * graphs   = padded fixed-degree ``(n_pad, R)`` int32 adjacency + degrees
-  * search   = batched masked frontier loop: gather neighbor ids, fused
-    distance compute on MXU/VPU, top-k merge — thousands of queries per step
+  * search   = batched masked frontier loop: gather neighbor ids, batched
+    distance compute, top-k merge — thousands of queries per step
   * builders = batch-synchronous jitted steps (prefix-doubling insertion,
     vectorized occlusion pruning, sort-based reverse-edge exchange)
   * scaling  = dataset shards over a ``jax.sharding.Mesh``; per-shard search
-    with all-gathered top-k merges over ICI
+    with all-gathered top-k merges over the interconnect
 
 Reference behavior parity targets are cited throughout as
-``/root/reference/<path>:<line>``.
+``<path>:<line>`` in the reference repository.
 """
 
 from parlayann_tpu.types import BuildParams, QueryParams, RangeParams, Metric

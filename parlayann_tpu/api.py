@@ -131,7 +131,7 @@ def build_hnsw_index(data, metric="Euclidian", m: int = 20, efc: int = 50,
 
 def build_cluster_index(data, metric="Euclidian", m: int = 64,
                         Rc: int = 16, **kwargs):
-    """Validated ClusterIndex build (TPU-native two-level structure, see
+    """Validated ClusterIndex build (two-level structure, see
     build/clusterindex.py; no reference counterpart — it composes the
     two-level QQ filter of beamSearch.h:119-146 with a partition)."""
     from parlayann_tpu.build.clusterindex import ClusterIndex
@@ -143,11 +143,6 @@ def build_cluster_index(data, metric="Euclidian", m: int = 64,
         raise ValueError(f"m and Rc must be multiples of 8, got {m}, {Rc}")
     if not isinstance(data, PointSet):
         data = PointSet.from_numpy(data, metric=valid_metric(metric))
-    if data.d < m or data.d < Rc:
-        raise ValueError(
-            f"packed id planes need d >= m and d >= Rc "
-            f"(d={data.d}, m={m}, Rc={Rc})"
-        )
     return ClusterIndex.build(data, m=m, Rc=Rc, **kwargs)
 
 

@@ -6,8 +6,9 @@ partition points to the nearer pivot, recurse via par_do until leaves have
 <= cluster_size points; multiple_clustertrees repeats num_clusters times)
 and clusterPynn.h:52-175.
 
-TPU redesign: the fork-join recursion becomes a *level-synchronous* loop
-over all points at once. Each point carries a cluster label; one level =
+Data-parallel redesign: the fork-join recursion becomes a
+*level-synchronous* loop over all points at once. Each point carries a
+cluster label; one level =
 
   1. sort points by (label, random key) — the first two points of each
      label segment are that cluster's two random pivots,
@@ -68,7 +69,7 @@ def cluster_tree_labels(
         rank = pos - seg_start
         # segment ends via one reverse cummin, not searchsorted: XLA
         # lowers searchsorted to a log2(n)-step binary-search while loop
-        # of gather fusions (measured 316 of 347 ms/tree device time)
+        # of gather fusions
         nxt_first = jnp.concatenate([first[1:], jnp.ones(1, bool)])
         right = jax.lax.cummin(
             jnp.where(nxt_first, pos + 1, n_pad), reverse=True
@@ -101,9 +102,9 @@ def cluster_tree_labels(
 
     # while_loop, not a fixed-depth scan: the tree needs ~log2(n/S)+skew
     # levels (8-10 at 100K/S=1000) but the static bound is 24 — a scan
-    # runs every level's full sort+gather even after all clusters froze
-    # (measured 2.5x of the whole labeling phase). Stop as soon as no
-    # cluster split, with max_levels as the runaway bound.
+    # runs every level's full sort+gather even after all clusters froze.
+    # Stop as soon as no cluster split, with max_levels as the runaway
+    # bound.
     def cond(state):
         _, _, active, _, lvl = state
         return jnp.any(active) & (lvl < max_levels)

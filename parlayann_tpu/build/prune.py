@@ -3,7 +3,7 @@
 Reference: vamana/index.h:63-120. The sequential greedy loop ("accept the
 closest surviving candidate p*, then eliminate every later candidate p' with
 α·d(p*,p') ≤ d(p,p')") is inherently ordered in its accept decisions but not
-in its eliminations, so on TPU it becomes R rounds of batched vector math
+in its eliminations, so here it becomes R rounds of batched vector math
 over B points at once:
 
   round r: star  = first surviving candidate per row (argmax over a mask),
@@ -54,10 +54,14 @@ def sort_dedup_candidates(cand_ids, cand_dists, n_valid: int):
 
 
 def _pairwise(cand_vecs: jax.Array, metric: Metric) -> jax.Array:
-    """(B, C, d) -> (B, C, C) all candidate-candidate distances in ONE MXU
+    """(B, C, d) -> (B, C, C) all candidate-candidate distances in ONE
     batched matmul. Precomputing moves the occlusion loop's per-round
-    distance work (R re-reads of the candidate vectors from HBM) into a
-    single compute-bound einsum — ~10x faster on TPU."""
+    distance work (R re-reads of the candidate vectors) into a single
+    compute-bound einsum.
+
+    Default matmul precision (TF32 on tensor cores) on purpose: these
+    distances only decide which candidates become edges; the distances
+    a search returns are computed exactly at query time."""
     if cand_vecs.dtype != jnp.float32:
         cand_vecs = cand_vecs.astype(jnp.float32)
     dot = jnp.einsum(
@@ -72,45 +76,9 @@ def _pairwise(cand_vecs: jax.Array, metric: Metric) -> jax.Array:
 
 def _occlusion_loop(cand_ids, cand_dists, cand_vecs, alpha, R: int, metric: Metric):
     """R rounds of α-occlusion -> (sel_ids, sel_dists), both (B, R) in
-    selection (= distance) order. Dispatches to the VMEM-resident Pallas
-    kernel (ops/pallas/occlude.py) unless PARLAYANN_OCCLUDE=xla; the XLA
-    pairwise-matrix path below is the reference implementation and the
-    CPU-test oracle for the kernel.
-
-    NOTE: the env var is read at TRACE time inside jitted callers — it
-    only takes effect before the first compile of each shape; flipping it
-    mid-process does not affect already-compiled programs. Set it before
-    the first build call when A/B-ing kernel vs XLA."""
-    import os
-
+    selection (= distance) order. Inputs are sorted by distance with
+    duplicates masked to INF (``sort_dedup_candidates``)."""
     B, C = cand_ids.shape
-    d = cand_vecs.shape[2]
-    # kernel capacity: the (block, C, C) pairwise + vecs buffers need an
-    # 8-row block inside the ~8MB VMEM budget; wider candidate sets (e.g.
-    # R=128 L=256 builds) fall back to the XLA path instead of raising
-    kernel_fits = (8 << 20) // (4 * C * (C + d)) >= 8
-    if kernel_fits and os.environ.get("PARLAYANN_OCCLUDE", "kernel") != "xla":
-        from parlayann_tpu.ops.pallas.occlude import occlusion_rounds
-
-        rounds = occlusion_rounds(
-            cand_dists, cand_vecs, alpha, R=R, metric=metric
-        )
-        # selection order == round order: one stable lane sort recovers the
-        # (B, R) lists; unselected rows carry round R + C -> sort to the end
-        srounds, sel_ids, sel_dists = jax.lax.sort(
-            (rounds, cand_ids, cand_dists), num_keys=1, is_stable=True
-        )
-        picked = srounds[:, :R] < R + C
-        return (
-            jnp.where(picked, sel_ids[:, :R], -1),
-            jnp.where(picked, sel_dists[:, :R], INF),
-        )
-    return _occlusion_loop_xla(cand_ids, cand_dists, cand_vecs, alpha, R, metric)
-
-
-def _occlusion_loop_xla(cand_ids, cand_dists, cand_vecs, alpha, R: int, metric: Metric):
-    B, C = cand_ids.shape
-    brow = jnp.arange(B, dtype=jnp.int32)
     pos_c = jnp.arange(C, dtype=jnp.int32)[None, :]
     pair_d = _pairwise(cand_vecs, metric)  # (B, C, C)
 
@@ -120,27 +88,22 @@ def _occlusion_loop_xla(cand_ids, cand_dists, cand_vecs, alpha, R: int, metric: 
         any_alive = jnp.any(alive, axis=1)
         star = jnp.argmax(alive, axis=1).astype(jnp.int32)  # first surviving
         onehot = (pos_c == star[:, None])
-        # row-select via masked reduce / one-hot matmul: TPU executes these
-        # on VPU/MXU ~5x faster than a dynamic row gather from (B, C, C)
         star_id = jnp.sum(jnp.where(onehot, cand_ids, 0), axis=1)
         star_dist = jnp.sum(jnp.where(onehot, cand_dists, 0.0), axis=1)
         sel_ids = sel_ids.at[:, r].set(jnp.where(any_alive, star_id, -1))
         sel_dists = sel_dists.at[:, r].set(jnp.where(any_alive, star_dist, INF))
-        d_sp = jnp.einsum(
-            "bi,bij->bj", onehot.astype(jnp.float32), pair_d,
-            preferred_element_type=jnp.float32,
-        )
+        d_sp = jnp.sum(jnp.where(onehot[:, :, None], pair_d, 0.0), axis=1)
         occl = alpha * d_sp <= cand_dists  # index.h:111-113
-        # mark star + occluded; pure masks (scatters are slow on TPU)
         elim = elim | ((occl | onehot) & any_alive[:, None])
         return elim, sel_ids, sel_dists
 
     elim0 = cand_dists >= INF
     sel_ids0 = jnp.full((B, R), -1, dtype=jnp.int32)
     sel_dists0 = jnp.full((B, R), INF, dtype=jnp.float32)
-    elim, sel_ids, sel_dists = jax.lax.fori_loop(
-        0, R, body, (elim0, sel_ids0, sel_dists0)
-    )
+    with jax.named_scope("occlusion_loop"):
+        elim, sel_ids, sel_dists = jax.lax.fori_loop(
+            0, R, body, (elim0, sel_ids0, sel_dists0)
+        )
     return sel_ids, sel_dists
 
 

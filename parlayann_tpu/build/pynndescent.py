@@ -7,10 +7,11 @@ Reference: pyNNDescent/pynn_index.h + clusterPynn.h. Structure:
   3. finish: union with reversed edges, then alpha-occlusion prune to K
      (undirect_and_prune, pynn_index.h:198-239).
 
-TPU redesign of the round (pynn_index.h:66-155): the reference's push-style
-local join (emit candidate pairs inside each vertex's join set, semisort by
-target, bounded-merge) is scatter-heavy; here each vertex *pulls* sampled
-neighbors-of-neighbors over the symmetrized graph — the same 2-hop
+Data-parallel redesign of the round (pynn_index.h:66-155): the
+reference's push-style local join (emit candidate pairs inside each
+vertex's join set, semisort by target, bounded-merge) is scatter-heavy;
+here each vertex *pulls* sampled neighbors-of-neighbors over the
+symmetrized graph — the same 2-hop
 discovery, but every candidate list is row-aligned to its owner so a round
 is: one reverse pass (sort), two sampled gathers, one fused distance block,
 one row-wise merge sort. Sampling replaces the reference's "new"-flag work
@@ -193,7 +194,7 @@ def build_pynndescent_graph(points: PointSet, bp: BuildParams,
     """Build the pyNNDescent graph. Returns (GraphIndexData, seconds).
 
     ``polish``: one exact 2-hop round after the sampled rounds converge.
-    Parity study (scripts/diag_pynn_parity.py, BENCHES.md): the sampled
+    Parity study (scripts/diag_pynn_parity.py): the sampled
     pull rounds match the reference push-join on kNN quality (.9996 vs
     .9929 knn-recall@10) but miss ~0.3 borderline entries/row that the
     exhaustive join finds, costing 5-7pp end-to-end recall on

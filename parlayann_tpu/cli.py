@@ -35,10 +35,10 @@ def make_parser() -> argparse.ArgumentParser:
     a("-algorithm", type=str, default="auto",
       choices=["auto", "cluster"],
       help="auto = infer the graph family from the reference's flags "
-           "(alg_type, types.h:154-245); cluster = the TPU-native "
+           "(alg_type, types.h:154-245); cluster = the "
            "two-level cluster index (build/clusterindex.py)")
     a("-cluster_m", type=int, default=64,
-      help="cluster index: members per cluster (packed-row sublanes)")
+      help="cluster index: members per cluster")
     a("-data_type", type=str, default="float", choices=["float", "uint8", "int8"])
     a("-dist_func", type=str, default="Euclidian", choices=["Euclidian", "mips"])
     a("-normalize", action="store_true")

@@ -1,6 +1,6 @@
 """GraphIndexData — the padded fixed-degree adjacency artifact.
 
-TPU-native equivalent of the reference's ``Graph<indexType>`` (graph.h:126):
+Device-array equivalent of the reference's ``Graph<indexType>`` (graph.h:126):
 the reference already stores a flat ``(maxDeg+1)``-stride row per vertex with
 slot 0 = degree (graph.h:234-242); here that becomes two device arrays —
 ``neighbors (n_pad, max_degree) int32`` and ``degrees (n_pad,) int32`` — so

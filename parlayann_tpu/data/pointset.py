@@ -1,11 +1,11 @@
-"""PointSet — the HBM-resident vector store.
+"""PointSet — the device-resident vector store.
 
-TPU-native replacement for the reference's ``PointRange<Point>`` + point-type
+Device-array replacement for the reference's ``PointRange<Point>`` + point-type
 template zoo (point_range.h:43, euclidian_point.h:93, mips_point.h:68):
 vectors live as one padded ``(n_pad, d)`` device array per precision tier;
 the metric and quantization parameters are plain metadata, and distance
 computation lives in ``parlayann_tpu.ops.distance`` instead of per-point
-methods. Row padding (to the f32 sublane multiple) replaces the reference's
+methods. Row padding (to a multiple of 8 rows) replaces the reference's
 64-byte row alignment (point_range.h:94-99).
 """
 

@@ -8,7 +8,7 @@ ground-truth set reported, over queries with nonempty GT), cumulative
 recall (total reported / total GT) and QPS. Driven by
 rangeSearch/vamanaRange/range.h:40-69.
 
-TPU notes: queries run as one batch per beam; the timer covers the fused
+Device notes: queries run as one batch per beam; the timer covers the fused
 beam+BFS dispatches only (query upload excluded, matching the reference's
 query-only timer). The BFS result set is capped; the cap auto-rises to
 cover the largest GT set so a truncated set can never masquerade as a

@@ -53,8 +53,13 @@ def compute_recall(
     gt_ids: np.ndarray,  # (B, kg) with kg >= k
     gt_dists: np.ndarray | None = None,  # (B, kg) for tie resolution
     k: int = 10,
+    tie_rtol: float = 0.0,
 ) -> float:
-    """k@k recall with ties counted (check_nn_recall.h:83-109)."""
+    """k@k recall with ties counted (check_nn_recall.h:83-109).
+
+    A GT column beyond k counts as a tie when its distance equals the
+    k-th one, or lies within ``tie_rtol`` of it (relative), for results
+    computed in another precision than the GT."""
     B = result_ids.shape[0]
     assert gt_ids.shape[1] >= k, f"{k}@{k} too large for GT of size {gt_ids.shape[1]}"
     res = result_ids[:, :k]
@@ -62,9 +67,8 @@ def compute_recall(
     # valid GT columns: first k always; columns beyond k only on distance tie
     if gt_dists is not None and kg > k:
         last = gt_dists[:, k - 1 : k]
-        tie = np.concatenate(
-            [np.ones((B, k), dtype=bool), gt_dists[:, k:] == last], axis=1
-        )
+        near = gt_dists[:, k:] - last <= tie_rtol * np.abs(last)
+        tie = np.concatenate([np.ones((B, k), dtype=bool), near], axis=1)
     else:
         tie = np.zeros((B, kg), dtype=bool)
         tie[:, :k] = True

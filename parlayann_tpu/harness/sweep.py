@@ -5,7 +5,7 @@ reference's 43 beam widths at cut=1.35, a visited-limit sweep {10..35} with
 degree_limit = min(max_degree, 5*limit), a best-accuracy probe (k=100,
 Q=1000, cut=10), then recall-bucketed best-QPS selection
 (parse_results.h:192-218). QPS is measured steady-state on device (the
-reference's cache-scrambling shuffle, check_nn_recall.h:41-47, has no TPU
+reference's cache-scrambling shuffle, check_nn_recall.h:41-47, has no device
 analog — compilation is excluded instead).
 """
 

@@ -1,17 +1,20 @@
 """ctypes loader for the native C++ runtime library.
 
-The compute path is JAX/XLA/Pallas; inherently sequential host-side stages
+The compute path is JAX/XLA; inherently sequential host-side stages
 (per-leaf union-find Kruskal for HCNNG) live in C++ (native/kruskal.cpp),
 parallel across leaves with OpenMP — mirroring the reference's
 sequential-within-leaf / parallel-across-leaves structure
-(hcnng_index.h:134-229). Compiled on first use with g++; a pure-numpy
-fallback keeps everything working without a toolchain.
+(hcnng_index.h:134-229). Compiled on first use with g++ (see
+``lib_path``); a pure-numpy fallback keeps everything working without a
+toolchain.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -20,10 +23,25 @@ import numpy as np
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRCS = [os.path.join(_ROOT, "native", f)
          for f in ("kruskal.cpp", "balance.cpp")]
-_LIB = os.path.join(_ROOT, "native", "libparlayann_native.so")
+_FLAGS = ["-O3", "-shared", "-fPIC", "-fopenmp"]
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
+
+
+def lib_path() -> str:
+    """Where the build lives: the file name carries a hash of the sources,
+    the compiler flags (generic code, no ``-march=native``) and the
+    machine type, so a stale or foreign-architecture build is never
+    loaded."""
+    h = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(_FLAGS).encode())
+    h.update(platform.machine().encode())
+    return os.path.join(_ROOT, "native",
+                        f"libparlayann_native-{h.hexdigest()[:16]}.so")
 
 
 def _load():
@@ -32,16 +50,13 @@ def _load():
         if _lib is not None or _build_failed:
             return _lib
         try:
-            if (not os.path.exists(_LIB)) or any(
-                os.path.getmtime(_LIB) < os.path.getmtime(src)
-                for src in _SRCS
-            ):
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-fopenmp", *_SRCS, "-o", _LIB],
-                    check=True, capture_output=True,
-                )
-            lib = ctypes.CDLL(_LIB)
+            path = lib_path()
+            if not os.path.exists(path):
+                tmp = f"{path}.{os.getpid()}.tmp"
+                subprocess.run(["g++", *_FLAGS, *_SRCS, "-o", tmp],
+                               check=True, capture_output=True)
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(path)
             lib.kruskal_leaves.argtypes = [
                 ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
                 ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
@@ -58,9 +73,14 @@ def _load():
             ]
             lib.balance_assign.restype = ctypes.c_int32
             _lib = lib
-        except Exception:
+        except (OSError, subprocess.CalledProcessError):
             _build_failed = True
         return _lib
+
+
+def loaded() -> bool:
+    """True when the native library built (or was found) and loaded."""
+    return _load() is not None
 
 
 def _as_i32p(a: np.ndarray):

@@ -2,12 +2,15 @@
 
 One kernel family replaces the reference's per-point-type distance methods
 (euclidian_point.h:45-90 squared L2; mips_point.h:43-65 negated inner
-product). Two shapes matter on TPU:
+product). Two shapes matter:
 
-  * ``all_pairs`` — (B,d) x (N,d) -> (B,N): a single MXU matmul (used by
+  * ``all_pairs`` — (B,d) x (N,d) -> (B,N): a single matmul (used by
     exact ground truth and leaf-level all-pairs in the builders).
   * ``gathered`` — (B,K,d) candidate vectors per query -> (B,K): the beam
-    search inner loop; bandwidth-bound batched dot on the VPU.
+    search inner loop; a bandwidth-bound batched dot.
+
+Both run at full float32 precision: their results are returned to callers
+and compared with ground truth.
 
 Both return *squared* L2 (the reference never takes sqrt) or negated dot for
 MIPS, so "smaller is closer" uniformly.
@@ -32,7 +35,7 @@ def _to_f32(x: jax.Array) -> jax.Array:
 def all_pairs(
     queries: jax.Array, points: jax.Array, metric: Metric
 ) -> jax.Array:
-    """(B, d), (N, d) -> (B, N) distance matrix via one MXU matmul.
+    """(B, d), (N, d) -> (B, N) distance matrix via one matmul.
 
     L2: ||q||^2 - 2 q.x + ||x||^2 (squared); MIPS: -q.x.
     """
@@ -60,15 +63,14 @@ def gathered(
 ) -> jax.Array:
     """(B, d), (B, K, d) -> (B, K) distances of per-query gathered candidates.
 
-    ``cand_norms`` is accepted for API stability but unused: a bf16-dot
-    norm form was tried for the int8 tier and measured SLOWER than the
-    diff² form (281 vs 221 ms/fused-insert-batch) — einsum bkd,bd->bk is a
-    batched matvec the MXU cannot tile, while XLA fuses the diff² reduce
-    straight into the gather."""
+    ``cand_norms`` is accepted for API stability but unused. The MIPS dot
+    runs at HIGHEST precision: a float32 einsum may otherwise run in TF32,
+    and these scores feed ``rerank_topk``'s returned distances."""
     q = _to_f32(queries)
     c = _to_f32(cand_vecs)
     if metric is Metric.MIPS:
-        return -jnp.einsum("bkd,bd->bk", c, q)
+        return -jnp.einsum("bkd,bd->bk", c, q,
+                           precision=jax.lax.Precision.HIGHEST)
     diff = c - q[:, None, :]
     return jnp.sum(diff * diff, axis=-1)
 

@@ -39,8 +39,8 @@ def euclidean_translate(x: jax.Array, slope, offset, bits: int = 8) -> jax.Array
 
     Storage deviation: the reference stores levels 0..255 as uint8; here the
     8-bit tier stores ``level - 128`` as int8 — L2 distances are differences
-    so the constant shift cancels exactly, and int8 is the dtype the Pallas
-    TPU expansion kernel can cast to f32 (Mosaic has no uint8->f32 cast).
+    so the constant shift cancels exactly, and one signed 8-bit dtype serves
+    float and uint8 inputs alike.
     """
     maxval = 2.0**bits - 1.0
     q = jnp.round((x.astype(jnp.float32) - offset) * slope)
@@ -141,8 +141,8 @@ def translate_query(q: jax.Array, ps: PointSet) -> jax.Array:
 # distances. Euclidean: bit = coord > per-dim median (euclidian_point.h:
 # 332-420 uses the global median; per-dim is strictly more informative and
 # costs the same here). MIPS: sign bit (mips_point.h:625-700).
-# On TPU these tiers matter as *smaller inline arrays* (32x less DMA than
-# f32); the reference's two-level filtered search (beamSearch.h:119-146)
+# These tiers matter as *smaller search tiers* (32x fewer bytes per row
+# than f32); the reference's two-level filtered search (beamSearch.h:119-146)
 # is subsumed by searching the cheap tier and reranking
 # (beamSearch.h:394-454) — masked filtering saves nothing in batch mode.
 # ---------------------------------------------------------------------------
@@ -250,7 +250,8 @@ def mips_2bit_distance(q_words: jax.Array, c_words: jax.Array) -> jax.Array:
 # packed per int8 byte (Mips_4Bit_Point, mips_point.h:706-849; distance_4
 # at :344-354). Unpacking is (x<<4)>>4 (low) and x>>4 (high) with
 # arithmetic shifts; distances run as an f32 einsum on the unpacked values
-# (int8 einsum accumulates wrong on TPU — see tests/test_quantized.py).
+# (an int8 einsum without a cast can accumulate in 8 bits — see
+# tests/test_quantized.py).
 # Layout: nibble j of byte i holds coords [i] (low) and [i + d/2] (high),
 # matching the reference's two-loop distance.
 # ---------------------------------------------------------------------------
@@ -286,8 +287,7 @@ def unpack_int4(packed: jax.Array) -> jax.Array:
 
 def mips_4bit_translate_query(q: jax.Array, tps: PointSet) -> jax.Array:
     """Queries stay UNPACKED f32 int4-levels: the distance is an einsum
-    against unpacked candidates, and f32 queries are what the TPU kernels
-    can load (same rule as the 8-bit tier)."""
+    against unpacked candidates (same rule as the 8-bit tier)."""
     lev = jnp.clip(jnp.round(q.astype(jnp.float32) * tps.quant_slope), -7, 7)
     if lev.shape[-1] % 2:
         lev = jnp.pad(lev, ((0, 0), (0, 1)))
@@ -309,7 +309,7 @@ def mips_4bit_distance(q_levels: jax.Array, c_packed: jax.Array) -> jax.Array:
 #   * sparse rows with 6 nonzeros (Mips_JL_Sparse_Point jl_point.h:193-285,
 #     Euclidean_JL_Sparse_Point euclidian_point.h:244-330) — here the sparse
 #     PATTERN is reproduced but materialized as a dense (d, jl_dims) matrix:
-#     on the MXU one dense matmul beats any sparse gather, and zeros are
+#     one dense matmul beats any sparse gather, and zeros are
 #     free. The reference's sparsity only saved CPU translate time.
 # bits=1 gives the sign-bit XOR-distance variants (jl_point.h:108-191).
 # ---------------------------------------------------------------------------

@@ -7,22 +7,21 @@ contiguous CLUSTER blocks and never moves. Centroids are tiny
 (n/m rows) and replicate, so the navigation algebra (seed top-S, beam
 merge, next-expansion choice) runs identically on every device. Each
 step, a query's expanded cluster lives on exactly one device: the owner
-scores its m members in the local q8 shard and the scores ride ICI as a
-``psum`` of owner-masked values ((B, m) f32 + ids); adjacency ids ride
-the same way, then every device scores them against the REPLICATED
-centroids locally (no vector traffic). The full-precision rerank is
-served by range-sharded f32 points with a ``pmin`` merge.
+scores its m members in the local q8 shard and the scores cross the
+interconnect as a ``pmin`` of owner-masked values ((B, m) f32 + ids);
+adjacency ids cross the same way, then every device scores them against
+the REPLICATED centroids locally (no vector traffic). The full-precision
+rerank is served by range-sharded f32 points with a ``pmin`` merge.
 
-ICI volume per step: B*(m*(4+4) + Rc*4) bytes ≈ 5.8 MB at B=10K, m=64,
-Rc=16 — independent of n and of d(im); the payload shard (n/D rows of
-(m+Rc+8)*dim int8) is the only term that scales.
+Interconnect volume per step: B*(m*(4+4) + Rc*4) bytes ≈ 5.8 MB at
+B=10K, m=64, Rc=16 — independent of n and of d(im); the payload shard
+(n/D clusters of m*dim int8) is the only term that scales.
 
-This is the multichip twin of ops/pallas/clusterbeam.py: same two state
-machines (cluster beam + point pool), expressed in XLA lane ops (sorts
-replace the in-kernel bitonic networks; a sorted pool merge replaces the
-bubble accumulator) so XLA can insert the collectives. Reference
-counterparts: beamSearch.h:119-146 (two-level filter) recast over a
-mesh; the reference has no distributed layer (SURVEY §2).
+The beam itself is search/cluster.py's ``cluster_beam``, the same loop
+the one-device ClusterIndex runs; only the member fetch differs (owner
+masks + collectives here). Reference counterparts: beamSearch.h:119-146
+(two-level filter) recast over a mesh; the reference has no distributed
+layer (SURVEY §2).
 """
 
 from __future__ import annotations
@@ -36,9 +35,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from parlayann_tpu.types import Metric
-from parlayann_tpu.ops import quantize
 from parlayann_tpu.ops.distance import INF
-from parlayann_tpu.utils.arrays import pow2 as _pow2
 
 
 @dataclasses.dataclass
@@ -70,7 +67,7 @@ class ShardedClusterIndex:
         D = mesh.shape["d"]
         if ci.qpoints is None:
             raise ValueError(
-                "sharded capacity mode needs the int8 ext layout — "
+                "sharded capacity mode needs the int8 member layout — "
                 "build the ClusterIndex with ext_dtype='int8'"
             )
         qdata = np.asarray(ci.qpoints.data)
@@ -110,7 +107,7 @@ class ShardedClusterIndex:
 
     def search(self, queries, k: int = 10, *, n_probe: int = 8,
                min_probe: int = 0, cut: float = 0.0, starts: int = 2,
-               pool: int = 128, rerank_pool: int = 20):
+               rerank_pool: int = 20):
         """-> (ids (B, k), dists (B, k) full precision, n_probes (B,))."""
         q_full = jnp.asarray(np.asarray(queries), jnp.float32)
         return _sharded_cluster_search(
@@ -119,7 +116,7 @@ class ShardedClusterIndex:
             mesh=self.mesh, metric=self.metric, C=self.C, m=self.m,
             Rc=self.Rc, n_points=self.n, Cl=self.clusters_per_shard,
             nl=self.rows_per_shard, k=k, n_probe=n_probe,
-            min_probe=min_probe, cut=cut, S=starts, pool=pool,
+            min_probe=min_probe, cut=cut, S=starts,
             rerank_pool=rerank_pool, tier_bits=self.tier_bits,
         )
 
@@ -137,44 +134,59 @@ def _sharded_kmeans_assign(
     """Distributed Lloyd + final k-candidate assignment.
 
     Points never move: each device scores its local row block against
-    the replicated centroids (MXU flat scans) and contributes one-hot
+    the replicated centroids (matmul flat scans) and contributes one-hot
     partial sums; a psum of the (C, dim) sums + (C,) counts — the only
-    ICI traffic, independent of n — replicates the update. Returns
+    interconnect traffic, independent of n — replicates the update. Returns
     ((D, nl, k) ids, dists sharded) + final centroids (replicated).
+
+    The local block is walked in point chunks of ``_kmeans_chunk_for(C)``
+    rows, as in the one-device build, so each (chunk, C) distance tile
+    and one-hot block stays near 256 MB whatever nl is.
     """
+    from parlayann_tpu.build.clusterindex import _kmeans_chunk_for
     from parlayann_tpu.search.flat import flat_search_batch
 
     dim = pts.shape[-1]
+    step = min(_kmeans_chunk_for(C), nl)
+    nc = -(-nl // step)
+    cid = jnp.arange(C, dtype=jnp.int32)[None, :]
 
     def local(pts, cents):
-        pts = pts[0]  # (nl, dim)
+        pts = jnp.pad(pts[0], ((0, nc * step - nl), (0, 0)))
         didx = jax.lax.axis_index("d")
-        row0 = didx * nl + jnp.arange(nl, dtype=jnp.int32)
-        valid = row0 < n
+        row = jnp.arange(nc * step, dtype=jnp.int32)
+        valid = (row < nl) & (didx * nl + row < n)
+        chunks = (pts.reshape(nc, step, dim), valid.reshape(nc, step))
+
+        def nearest(blk, cents, kk):
+            return flat_search_batch(
+                blk, cents, k=kk, metric=metric, n_valid=C,
+                chunk=min(cents.shape[0], 32768), select="sort",
+            )
 
         def one_iter(_, cents):
-            aid = flat_search_batch(
-                pts, cents, k=1, metric=metric, n_valid=C,
-                chunk=min(cents.shape[0], 32768), select="sort",
-            )[0][:, 0]
-            oh = (
-                (aid[:, None] == jnp.arange(C, dtype=jnp.int32)[None, :])
-                & valid[:, None]
-            ).astype(jnp.float32)
-            sums = jax.lax.dot_general(
-                oh, pts, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
+            def part(acc, chunk):
+                blk, ok = chunk
+                aid = nearest(blk, cents, 1)[0]
+                oh = ((aid == cid) & ok[:, None]).astype(jnp.float32)
+                sums = acc[0] + jax.lax.dot_general(
+                    oh, blk, (((0,), (0,)), ((), ())),
+                    preferred_element_type=jnp.float32,
+                )
+                return (sums, acc[1] + jnp.sum(oh, axis=0)), None
+
+            zero = (jnp.zeros((C, dim), jnp.float32),
+                    jnp.zeros((C,), jnp.float32))
+            (sums, cnts), _ = jax.lax.scan(part, zero, chunks)
             sums = jax.lax.psum(sums, "d")
-            cnts = jax.lax.psum(jnp.sum(oh, axis=0), "d")
+            cnts = jax.lax.psum(cnts, "d")
             new = sums / jnp.maximum(cnts, 1.0)[:, None]
             return jnp.where((cnts > 0)[:, None], new, cents)
 
         cents = jax.lax.fori_loop(0, iters, one_iter, cents)
-        ids, ds = flat_search_batch(
-            pts, cents, k=k, metric=metric, n_valid=C,
-            chunk=min(cents.shape[0], 32768), select="sort",
-        )
+        ids, ds = jax.lax.map(lambda blk: nearest(blk, cents, k), chunks[0])
+        ids = ids.reshape(nc * step, k)[:nl]
+        ds = ds.reshape(nc * step, k)[:nl]
         return ids[None], ds[None], cents
 
     return jax.shard_map(
@@ -253,40 +265,25 @@ def _assign_centroid_knn(cents, C: int, Rc: int):
 @partial(
     jax.jit,
     static_argnames=("mesh", "metric", "C", "m", "Rc", "n_points", "Cl",
-                     "nl", "k", "n_probe", "min_probe", "cut", "S", "pool",
+                     "nl", "k", "n_probe", "min_probe", "cut", "S",
                      "rerank_pool", "tier_bits"),
 )
 def _sharded_cluster_search(
     q_full, centroids_q, mvecs, mids, adj, points, slope, offset,
     *, mesh, metric, C, m, Rc, n_points, Cl, nl, k, n_probe, min_probe,
-    cut, S, pool, rerank_pool, tier_bits,
+    cut, S, rerank_pool, tier_bits,
 ):
-    B, dim = q_full.shape
-    Lc = n_probe + 4
+    from parlayann_tpu.ops import distance
+    from parlayann_tpu.search.cluster import (
+        cluster_beam, cluster_seed, translate_queries,
+    )
+
     _inf = float(INF)
+    q = translate_queries(q_full, slope, offset, tier_bits=tier_bits,
+                          metric=metric)
+    pool = max(rerank_pool, k)
 
-    if tier_bits < 32 and slope is not None:
-        if metric is Metric.L2:
-            q = quantize.euclidean_translate(q_full, slope, offset,
-                                             tier_bits)
-        else:
-            q = quantize.mips_translate(q_full, slope, offset, tier_bits)
-        q = q.astype(jnp.float32)
-    else:
-        q = q_full
-
-    cf = centroids_q.astype(jnp.float32)
-
-    def cdist(qq, vecs):
-        dots = jax.lax.dot_general(
-            qq, vecs, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        if metric is Metric.MIPS:
-            return -dots
-        return jnp.sum(vecs * vecs, axis=1)[None, :] - 2.0 * dots
-
-    def local(q, qf, cfl, mv, mi, ad, pts):
+    def local(q, qf, cq, mv, mi, ad, pts):
         """Per-device program under shard_map. mv/mi/ad/pts carry the
         leading (1, ...) shard axis."""
         mv, mi, ad, pts = mv[0], mi[0], ad[0], pts[0]
@@ -295,128 +292,31 @@ def _sharded_cluster_search(
         lo_r = didx * nl  # first owned point row
 
         # seed: exact top-S centroids (replicated algebra)
-        cd0 = cdist(q, cfl)
-        cid0 = jnp.arange(cfl.shape[0], dtype=jnp.int32)[None, :]
-        cd0 = jnp.where(cid0 < C, cd0, _inf)
-        sneg, sids = jax.lax.top_k(-cd0, S)
-        Wc = _pow2(max(Lc, S, 8))
-        lane = jnp.arange(Wc, dtype=jnp.int32)[None, :]
-        cbd = jnp.concatenate(
-            [-sneg, jnp.full((B, Wc - S), _inf)], axis=1)
-        cbi = jnp.concatenate(
-            [sids.astype(jnp.int32),
-             jnp.full((B, Wc - S), -1, jnp.int32)], axis=1)
-        cbx = jnp.zeros((B, Wc), bool)  # expanded flags
-        live = lane < Lc
-        cbd = jnp.where(live, cbd, _inf)
+        sd, sids = cluster_seed(q, cq, metric=metric, C=C, S=S)
 
-        pd = jnp.full((B, pool), _inf, jnp.float32)
-        pi = jnp.full((B, pool), -1, jnp.int32)
-        nv = jnp.zeros((B,), jnp.int32)
-
-        def pick(cbd, cbi, cbx, nv):
-            """First unexpanded in-cut lane -> exp ids (B,) or -1."""
-            unexp = ~cbx & (cbd < _inf)
-            if cut > 0.0 and metric.is_metric:
-                # same adaptive rule as the fused kernel: centroid cut
-                # with a min_probe floor
-                unexp = unexp & (
-                    (cbd < cut * cbd[:, :1]) | (nv[:, None] < min_probe)
-                )
-            has = jnp.any(unexp, axis=1)
-            first = jnp.argmax(unexp, axis=1)
-            e = jnp.take_along_axis(cbi, first[:, None], axis=1)[:, 0]
-            e = jnp.where(has & (nv < n_probe), e, -1)
-            return e, first
-
-        def body(state):
-            cbd, cbi, cbx, pd, pi, nv, e, first = state
-            act = e >= 0
+        def fetch(e, act):
+            """The owner scores the members; pmin/pmax replicate."""
             own = act & (e >= lo_c) & (e < lo_c + Cl)
             loc = jnp.clip(e - lo_c, 0, Cl - 1)
-
-            # --- owner scores members; psum replicates the scores ---
-            rows = jnp.take(mv, loc, axis=0)  # (B, m, dim) int8
-            rid = jnp.take(mi, loc, axis=0)  # (B, m)
-            rvec = rows.astype(jnp.float32)
-            if metric is Metric.MIPS:
-                md = -jnp.einsum("bmd,bd->bm", rvec, q,
-                                 preferred_element_type=jnp.float32)
-            else:
-                diff = rvec - q[:, None, :]
-                md = jnp.sum(diff * diff, axis=2)
-            ok = own[:, None] & (rid >= 0) & (rid < n_points)
+            md = distance.gathered(q, jnp.take(mv, loc, axis=0), metric)
+            rid = jnp.take(mi, loc, axis=0)
+            ok = own[:, None] & (rid >= 0)
             md = jax.lax.pmin(jnp.where(ok, md, _inf), "d")
             rid = jax.lax.pmax(jnp.where(ok, rid, -1), "d")
-
-            # --- pool merge: sorted concat, keep best `pool` ---
-            cd_ = jnp.concatenate([pd, md], axis=1)
-            ci_ = jnp.concatenate([pi, rid], axis=1)
-            cd_, ci_ = jax.lax.sort((cd_, ci_), num_keys=1)
-            pd2, pi2 = cd_[:, :pool], ci_[:, :pool]
-
-            # --- adjacency: owner broadcasts ids; all score locally ---
-            aid = jnp.take(ad, loc, axis=0)  # (B, Rc)
             aid = jax.lax.pmax(
-                jnp.where(own[:, None], aid, -1), "d")
-            avalid = (aid >= 0) & (aid < C) & act[:, None]
-            avec = jnp.take(
-                cfl, jnp.clip(aid, 0, cfl.shape[0] - 1), axis=0
-            ).astype(jnp.float32)  # (B, Rc, dim)
-            if metric is Metric.MIPS:
-                adist = -jnp.einsum("brd,bd->br", avec, q,
-                                    preferred_element_type=jnp.float32)
-            else:
-                adiff = avec - q[:, None, :]
-                adist = jnp.sum(adiff * adiff, axis=2)
-            dup = jnp.zeros(aid.shape, bool)
-            for l in range(Wc):
-                dup = dup | (aid == cbi[:, l:l + 1])
-            adist = jnp.where(avalid & ~dup, adist, _inf)
+                jnp.where(own[:, None], jnp.take(ad, loc, axis=0), -1), "d")
+            return md, rid, aid
 
-            # --- beam merge (sort is ~free at these widths) ---
-            nd = jnp.concatenate([cbd, adist], axis=1)
-            ni = jnp.concatenate([cbi, aid], axis=1)
-            nx = jnp.concatenate(
-                [cbx | (lane == first[:, None]) & act[:, None],
-                 jnp.zeros(aid.shape, bool)], axis=1)
-            # sort by (dist, expanded-last among equals is irrelevant)
-            nd_s, ni_s, nx_s = jax.lax.sort(
-                (nd, ni, nx.astype(jnp.int32)), num_keys=1)
-            cbd2 = jnp.where(live, nd_s[:, :Wc], _inf)
-            cbi2 = jnp.where(live, ni_s[:, :Wc], -1)
-            cbx2 = nx_s[:, :Wc].astype(bool) & live
-
-            nv2 = nv + act.astype(jnp.int32)
-            cbd2 = jnp.where(act[:, None], cbd2, cbd)
-            cbi2 = jnp.where(act[:, None], cbi2, cbi)
-            cbx2 = jnp.where(act[:, None], cbx2, cbx)
-            pd2 = jnp.where(act[:, None], pd2, pd)
-            pi2 = jnp.where(act[:, None], pi2, pi)
-            e2, first2 = pick(cbd2, cbi2, cbx2, nv2)
-            return cbd2, cbi2, cbx2, pd2, pi2, nv2, e2, first2
-
-        def cond(state):
-            return jnp.any(state[6] >= 0)
-
-        e0, first0 = pick(cbd, cbi, cbx, nv)
-        state = (cbd, cbi, cbx, pd, pi, nv, e0, first0)
-        state = jax.lax.while_loop(cond, body, state)
-        _, _, _, pd, pi, nv, _, _ = state
+        pd, pi, nv = cluster_beam(
+            q, sd, sids, cq, fetch, metric=metric, C=C, n_points=n_points,
+            n_probe=n_probe, min_probe=min_probe, cut=cut, pool=pool)
 
         # --- rerank: range-sharded f32 points, pmin merge ---
         cand = pi[:, :rerank_pool]
         cin = (cand >= lo_r) & (cand < lo_r + nl)
-        cvec = jnp.take(
-            pts, jnp.clip(cand - lo_r, 0, nl - 1), axis=0)  # (B, P, dim)
-        if metric is Metric.MIPS:
-            cd = -jnp.einsum("bpd,bd->bp", cvec, qf,
-                             preferred_element_type=jnp.float32)
-        else:
-            cdiff = cvec - qf[:, None, :]
-            cd = jnp.sum(cdiff * cdiff, axis=2)
-        cd = jax.lax.pmin(
-            jnp.where(cin & (cand >= 0), cd, _inf), "d")
+        cvec = jnp.take(pts, jnp.clip(cand - lo_r, 0, nl - 1), axis=0)
+        cd = distance.gathered(qf, cvec, metric)
+        cd = jax.lax.pmin(jnp.where(cin & (cand >= 0), cd, _inf), "d")
         kd, kidx = jax.lax.top_k(-cd, k)
         ids = jnp.take_along_axis(cand, kidx, axis=1)
         dists = -kd
@@ -429,4 +329,5 @@ def _sharded_cluster_search(
         out_specs=(P(), P(), P()),
         check_vma=False,
     )
-    return fn(q, q_full, cf, mvecs, mids, adj, points)
+    return fn(q, q_full.astype(jnp.float32), centroids_q, mvecs, mids, adj,
+              points)

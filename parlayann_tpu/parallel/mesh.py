@@ -2,9 +2,10 @@
 
 The reference is a single-node shared-memory library (SURVEY §2: no
 MPI/NCCL anywhere); its scaling axis is hugepage-backed flat arrays on one
-big box. The TPU-native scaling axis is a ``jax.sharding.Mesh``: the
+big box. Here the scaling axis is a ``jax.sharding.Mesh``: the
 dataset (vectors + graph rows) shards over the ``d`` axis, queries shard
-over the ``q`` axis, and cross-shard top-k merges ride ICI collectives.
+over the ``q`` axis, and cross-shard top-k merges are collectives over
+the interconnect.
 """
 
 from __future__ import annotations

@@ -1,12 +1,13 @@
 """Dataset-sharded build and search over a device mesh.
 
-Design (SURVEY §2 "TPU-native communication equivalent"): the dataset is
+Design (SURVEY §2, the communication equivalent): the dataset is
 split into contiguous row blocks, one per ``d``-axis mesh slot; each shard
 builds and owns an independent Vamana graph over its rows (builds are
 embarrassingly parallel — every shard runs the same batch-synchronous
 insert step on its local block under ``shard_map``). Queries replicate over
 ``d`` and shard over ``q``; each device beam-searches its local graph and
-the per-shard top-k are merged with one ``all_gather`` over ICI.
+the per-shard top-k are merged with one ``all_gather`` over the
+interconnect.
 
 Local ids translate to global ids by ``shard_index * rows_per_shard`` —
 shards are contiguous blocks of the original row order.
@@ -216,7 +217,7 @@ def sharded_search(
             ok = (ids >= 0) & (ids < local_n)
             dists = jnp.where(ok, dists, INF)
             gids = jnp.where(ok, ids + shard * nl, -1)
-            # merge across dataset shards: one all-gather over ICI
+            # merge across dataset shards: one all-gather
             all_d = jax.lax.all_gather(dists, "d", axis=0)  # (D, b, k)
             all_i = jax.lax.all_gather(gids, "d", axis=0)
             D = all_d.shape[0]

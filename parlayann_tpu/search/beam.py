@@ -1,18 +1,17 @@
 """Batched beam search — the shared search kernel (L2 of the layer map).
 
-TPU-native re-design of ``filtered_beam_search`` (beamSearch.h:27-214): where
-the reference runs one sequential best-first loop per query on one core, here
-B queries advance in lock-step; each step
+Data-parallel re-design of ``filtered_beam_search`` (beamSearch.h:27-214):
+where the reference runs one sequential best-first loop per query on one
+core, here B queries advance in lock-step; each step
 
   1. selects the E closest unexpanded beam entries per query (the reference
-     expands 1/step; E>1 amortizes merges and widens DMA reads),
-  2. computes all E*R candidate distances in one fused read — either the
-     Pallas inline-neighbor kernel (ops/pallas/expand.py, sequential 16-64KB
-     DMA reads) or an XLA gather fallback,
+     expands 1/step; E>1 amortizes merges),
+  2. computes all E*R candidate distances from one row gather of the
+     search tier (f32, q8 or the 1/2/4-bit packed tiers),
   3. merges beam + candidates with two batched stable lane-wise sorts: sort
      by (id, dist) masks duplicates exactly (this subsumes the reference's
      visited-hash + ``std::unique`` + ``set_union``, beamSearch.h:52-59 and
-     :173-181 — no hash is needed on TPU because already-seen candidates
+     :173-181 — no hash is needed because already-seen candidates
      are either still in the beam, caught by the dedup sort, or were
      evicted, and eviction implies dist >= the monotonically-shrinking
      beam-worst so the frontier-full cutoff re-drops them; the only cost of
@@ -23,10 +22,8 @@ B queries advance in lock-step; each step
   5. freezes queries whose beam has no unexpanded entries or whose visit
      budget ``limit`` is spent (beamSearch.h:107).
 
-Engineering rule learned from TPU profiling: lane-wise sorts, cumsums, and
-top-k on (B, ~hundreds) shapes are ~free; *scatters are 1000x slower* —
-so the loop state is updated exclusively with masks/cumsums (no scatter),
-and build-time visited recording uses `lax.scan` output stacking instead of
+The loop state is updated with masks/cumsums only (no scatter), and
+build-time visited recording uses `lax.scan` output stacking instead of
 dynamic-slice writes.
 """
 
@@ -42,7 +39,6 @@ import jax.numpy as jnp
 from parlayann_tpu.types import Metric
 from parlayann_tpu.ops import distance
 from parlayann_tpu.ops.distance import INF
-from parlayann_tpu.ops.pallas.expand import expand_distances
 
 
 class BeamResult(NamedTuple):
@@ -70,37 +66,40 @@ def _merge(beam_ids, beam_dists, beam_exp, cand_ids, cand_dists, L: int):
 
     Two batched stable sorts: (id, 1-exp) lexicographic to mask duplicate
     ids — the *expanded* copy wins so that a candidate copy whose distance
-    differs by an ulp (Pallas vs XLA distance path) can never resurrect an
+    differs by an ulp can never resurrect an
     already-expanded vertex — then (dist, id) to restore beam order. This
     is the reference's sort + unique + set_union (beamSearch.h:173-181).
     """
-    ids = jnp.concatenate([beam_ids, cand_ids], axis=1)
-    dists = jnp.concatenate([beam_dists, cand_dists], axis=1)
-    exp = jnp.concatenate(
-        [beam_exp, jnp.zeros_like(cand_ids, dtype=jnp.int32)], axis=1
-    )
-    # pack (id, unexpanded-bit) into one int32 key: halves the sort operand
-    # count (sorts are ~25% of the search step) and makes the expanded copy
-    # sort first among equal ids for free
-    packed = ids * 2 + (1 - jnp.minimum(exp, 1))
-    spacked, sdist = jax.lax.sort((packed, dists), num_keys=1, is_stable=True)
-    sid = jax.lax.shift_right_logical(spacked, 1)
-    dup = jnp.concatenate(
-        [jnp.zeros_like(sid[:, :1], dtype=bool), sid[:, 1:] == sid[:, :-1]], axis=1
-    )
-    sdist = jnp.where(dup, INF, sdist)
-    ndist, npacked = jax.lax.sort((sdist, spacked), num_keys=2, is_stable=True)
-    nid = jax.lax.shift_right_logical(npacked, 1)
-    nexp = 1 - (npacked & 1)
-    return nid[:, :L], ndist[:, :L], nexp[:, :L]
+    with jax.named_scope("beam_merge"):
+        ids = jnp.concatenate([beam_ids, cand_ids], axis=1)
+        dists = jnp.concatenate([beam_dists, cand_dists], axis=1)
+        exp = jnp.concatenate(
+            [beam_exp, jnp.zeros_like(cand_ids, dtype=jnp.int32)], axis=1
+        )
+        # pack (id, unexpanded-bit) into one int32 key: halves the sort
+        # operand count and makes the expanded copy sort first among
+        # equal ids for free
+        packed = ids * 2 + (1 - jnp.minimum(exp, 1))
+        spacked, sdist = jax.lax.sort((packed, dists), num_keys=1,
+                                      is_stable=True)
+        sid = jax.lax.shift_right_logical(spacked, 1)
+        dup = jnp.concatenate(
+            [jnp.zeros_like(sid[:, :1], dtype=bool),
+             sid[:, 1:] == sid[:, :-1]], axis=1
+        )
+        sdist = jnp.where(dup, INF, sdist)
+        ndist, npacked = jax.lax.sort((sdist, spacked), num_keys=2,
+                                      is_stable=True)
+        nid = jax.lax.shift_right_logical(npacked, 1)
+        nexp = 1 - (npacked & 1)
+        return nid[:, :L], ndist[:, :L], nexp[:, :L]
 
 
 @partial(
     jax.jit,
     static_argnames=(
         "metric", "n_valid", "k", "L", "cut", "limit", "degree_limit",
-        "expand", "record_visited", "exclude_self", "use_inline", "block_b",
-        "bits", "expand_group",
+        "expand", "record_visited", "exclude_self", "bits",
     ),
 )
 def beam_search_batch(
@@ -110,7 +109,6 @@ def beam_search_batch(
     degs: jax.Array,  # (n_pad,) int32
     starts: jax.Array,  # (S,) or (B, S) int32 start vertices
     self_ids: Optional[jax.Array] = None,  # (B,) id to exclude (build self)
-    inline: Optional[jax.Array] = None,  # (n_pad, R, d) inline neighbor vecs
     *,
     metric: Metric,
     n_valid: int,
@@ -122,11 +120,8 @@ def beam_search_batch(
     expand: int = 1,
     record_visited: bool = False,
     exclude_self: bool = False,
-    use_inline: bool = True,
-    block_b: int = 256,
     init_state: Optional[tuple] = None,
     bits: int = 32,
-    expand_group: int = 1,
     filter_data: Optional[jax.Array] = None,  # (n_pad, d) cheap-tier rows
     filter_queries: Optional[jax.Array] = None,  # (B, d) tier-domain queries
 ) -> BeamResult:
@@ -147,7 +142,6 @@ def beam_search_batch(
     K = E * rwidth
     limit = min(limit, n_valid)
     brow_l = jnp.arange(L, dtype=jnp.int32)[None, :]
-    have_inline = inline is not None and use_inline
     use_filtering = filter_data is not None and filter_queries is not None
 
     if starts.ndim == 1:
@@ -274,37 +268,7 @@ def beam_search_batch(
                 cheap_c >= thr[:, None])
             cand_valid &= ~drop
 
-        if have_inline:
-            # bits==1 runs the flat packed-word hamming kernel (the inline
-            # is (n, rws, 128) words — Mosaic rejects DMA slices narrower
-            # than the 128-lane tiling, see build_inline_bits_flat);
-            # 2/4-bit tiers have no kernel path yet and use the XLA
-            # fallback. The inline array may be R-padded to a sublane
-            # multiple; slice the kernel output back to rwidth.
-            if bits == 1:
-                from parlayann_tpu.ops.pallas.expand import expand_bits_flat
-
-                def dfn(ids, qs, width):
-                    return expand_bits_flat(
-                        inline, ids, qs, block_b=min(block_b, width),
-                        group=expand_group,
-                    )
-            else:
-                def dfn(ids, qs, width):
-                    return expand_distances(
-                        inline, ids, qs, metric=metric,
-                        block_b=min(block_b, width), group=expand_group,
-                    )
-
-            if E == 1:
-                dmat = dfn(exp_ids_c[:, 0], queries, B)[:, None, :]
-            else:
-                qrep = jnp.repeat(queries, E, axis=0)
-                dmat = dfn(exp_ids_c.reshape(B * E), qrep, B * E)
-                dmat = dmat.reshape(B, E, dmat.shape[1])
-            cand_dists = dmat[:, :, :rwidth].reshape(B, K)
-            cand_dists = jnp.where(cand_valid, cand_dists, INF)
-        else:
+        with jax.named_scope("beam_candidate_distances"):
             cand_dists = xla_distances(cand_ids, cand_valid)
 
         # -- 3. frontier-full cutoff (beamSearch.h:150-159) --

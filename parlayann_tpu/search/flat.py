@@ -1,31 +1,28 @@
-"""Flat (brute-force) k-NN — MXU-native exact/approx search.
+"""Flat (brute-force) k-NN — matmul-based exact/approx search.
 
-TPU-first component with no reference counterpart among the index types
-(the reference's closest relative is the linear scan inside
-data_tools/compute_groundtruth.cpp:22-60): on hardware whose FLOPs live
-in a 128x128 systolic array, a dense (B, d) @ (d, N) distance matmul over
-100K-1M points costs single-digit milliseconds per 10K-query batch, so
-below the memory crossover brute force IS the speed-of-light ANN
-algorithm — recall 1.0 at QPS that graph traversal cannot reach. The
-graph indexes take over where N*d stops fitting the FLOP/latency budget.
+No reference counterpart among the index types (the reference's closest
+relative is the linear scan inside data_tools/compute_groundtruth.cpp:
+22-60): a dense (B, d) @ (d, N) distance matmul over 100K-1M points is a
+few TFLOP per 10K-query batch, so below the memory crossover brute force
+is recall 1.0 at a QPS graph traversal cannot reach. The graph indexes
+take over where N*d stops fitting the FLOP/latency budget.
 
 Design: one jitted ``lax.scan`` over dataset chunks. Each chunk computes
-a distance tile on the MXU and reduces it to k candidates immediately
+a distance tile by matmul and reduces it to k candidates immediately
 (the (B, N) matrix is never materialized); a running (B, k) top-k is
 merged per chunk with a small-lane sort. Chunk reduction strategies:
 
-* ``select="sort"``  — exact: per-group (128-lane) sort keeps the k
-  smallest of each group, then one (B, C/128*k)-lane sort. Lane sorts on
-  ~hundreds of lanes are the cheap primitive on TPU; the naive
-  ``lax.top_k`` over a 16K-lane chunk is a full bitonic sort, ~4x more
-  VPU traffic.
-* ``select="approx"`` — ``lax.approx_min_k`` (the TPU PartialReduce
-  unit). Per-chunk recall_target 0.999 keeps end-to-end recall@10
-  indistinguishable from exact in practice at ~reduction speed-of-light.
+* ``select="sort"``  — exact: per-group sort keeps the k smallest of each
+  group, then one (B, C/G*k)-lane sort.
+* ``select="approx"`` — ``lax.approx_min_k``. Per-chunk recall_target
+  0.999 keeps end-to-end recall@10 indistinguishable from exact in
+  practice.
+* ``select="groupmin"`` — per-group min (see the branch comment).
 
-``precision="fast"`` runs the matmul in the MXU's native bf16 passes
-(inputs cast to f32, default precision); ``precision="exact"`` uses
-HIGHEST (6-pass) for ground-truth work.
+``precision="fast"`` runs the matmul at the default precision (TF32 on
+tensor cores): only for selection that an exact score follows (build
+candidate scans, k-means assignment). ``precision="exact"`` uses HIGHEST
+for ground-truth work.
 """
 
 from __future__ import annotations
@@ -59,15 +56,15 @@ def _select_sort(d, ids, k):
     """Exact k smallest of (B, C) -> (B, k) via two-level lane sorts.
 
     The group width G adapts to 2k (pow2, capped 2048) so every
-    recursion level SHRINKS the lane count by >= 2x: with the fixed
+    recursion level SHRINKS the lane count by >= 2x: with a fixed
     G=128, any k >= 128 kept whole groups and the collapse level
     recursed on an UNSHRUNK array forever (hit by the meta-respill's
-    widening-k passes at 10M, 2026-08-20)."""
+    widening-k passes at 10M)."""
     B, C = d.shape
     if k > 1024:
         raise ValueError(
             f"_select_sort k={k} > 1024: widen the caller's candidate "
-            "chunking instead (a full wide lax.sort faults the device)")
+            "chunking instead of one full-width sort")
     G = 128
     while G < min(2 * k, C) and G < 2048:
         G *= 2
@@ -75,10 +72,7 @@ def _select_sort(d, ids, k):
         sd, si = jax.lax.sort((d, ids), dimension=1, num_keys=1)
         return sd[:, :k], si[:, :k]
     if C % G:
-        # pad to a group multiple rather than full-width sorting: a
-        # single lax.sort over tens of thousands of lanes is the one
-        # pathologically-shaped op on TPU (at (2048, 19532) f32 it took
-        # the v5e worker down with a device fault)
+        # pad to a group multiple rather than one full-width sort
         pad = G - C % G
         d = jnp.concatenate([d, jnp.full((B, pad), INF, d.dtype)], axis=1)
         ids = jnp.concatenate(
@@ -123,13 +117,6 @@ def flat_search_batch(
     already-inserted subset, never yourself) without recompiling per
     batch.
     """
-    if select == "pallas":
-        from parlayann_tpu.ops.pallas.flatscan import flat_topk_pallas
-
-        return flat_topk_pallas(
-            queries, points_data, valid_mask, exclude_ids,
-            k=k, metric=metric, n_valid=n_valid, precision=precision,
-        )
     B, d = queries.shape
     n_pad = points_data.shape[0]
     chunk = min(chunk, n_pad)
@@ -163,12 +150,11 @@ def flat_search_batch(
             )
             cids = jnp.take_along_axis(ids, ci_sel, axis=1)
         elif select == "groupmin":
-            # per-group min+argmin is a pure REDUCTION, which XLA fuses
-            # into the matmul epilogue — the (B, chunk) tile never hits
-            # HBM (sort/top_k based selects materialize it: measured 10x
-            # slower end-to-end). With k likely spread across groups the
-            # per-query chance that a group of 64 holds two of the true
-            # top-10 is ~2%, i.e. ~99.8% expected recall@10 per chunk.
+            # per-group min+argmin is a pure REDUCTION, cheaper than a
+            # sort of the (B, chunk) tile. With k likely spread across
+            # groups the per-query chance that a group of 64 holds two of
+            # the true top-10 is ~2%, i.e. ~99.8% expected recall@10 per
+            # chunk.
             G = 64
             if dd.shape[1] % G:  # odd pad width: exact small-case fallback
                 cd, cids = _select_sort(dd, ids, k)
@@ -192,9 +178,10 @@ def flat_search_batch(
 
     run_d = jnp.full((B, k), INF, jnp.float32)
     run_i = jnp.full((B, k), -1, jnp.int32)
-    (run_d, run_i), _ = jax.lax.scan(
-        step, (run_d, run_i), jnp.arange(nch, dtype=jnp.int32)
-    )
+    with jax.named_scope("flat_scan"):
+        (run_d, run_i), _ = jax.lax.scan(
+            step, (run_d, run_i), jnp.arange(nch, dtype=jnp.int32)
+        )
     run_i = jnp.where(run_d < INF, run_i, -1)
     if metric is not Metric.MIPS:
         qn = jnp.sum(qf * qf, axis=1, keepdims=True)
@@ -231,9 +218,10 @@ class FlatIndex:
             from parlayann_tpu.ops import quantize as qz
 
             q = qz.translate_query(q, self.qpoints).astype(jnp.float32)
+        # HIGHEST: these distances (and the order they set) are returned
         ids, dists = flat_search_batch(
             q, ps.data, k=k, metric=self.points.metric, n_valid=ps.n,
-            chunk=chunk, select=select,
+            chunk=chunk, select=select, precision="exact",
         )
         return ids, dists
 
@@ -245,9 +233,7 @@ class FlatIndex:
         queries = as_device(np.asarray(queries, dtype=np.float32))
         queries.block_until_ready()
         if warmup:
-            out = self.batch_search(queries, **kw)
-            _ = np.asarray(out[0][:1])
+            jax.block_until_ready(self.batch_search(queries, **kw))
         t0 = time.perf_counter()
-        out = self.batch_search(queries, **kw)
-        _ = np.asarray(out[0][:1])
+        out = jax.block_until_ready(self.batch_search(queries, **kw))
         return out[0], out[1], time.perf_counter() - t0

@@ -7,7 +7,7 @@ query-driven wrapper sweeping initial beams (check_range_recall.h:67-84).
 The live self-join driver is vamanaRange/neighbors.h:93-117 (for every base
 point, BFS from its own out-neighbors).
 
-TPU mapping: the BFS is the beam machinery with radius admission instead of
+Device mapping: the BFS is the beam machinery with radius admission instead of
 top-L trimming — state is a capped in-range set with expanded flags; each
 step expands E unexpanded in-range nodes per query, one fused distance
 block, one dedup merge. The result set is bounded by a static ``cap``

@@ -2,9 +2,9 @@
 
 Reference: beam_search_rerank (beamSearch.h:394-454) — beam search runs on
 the 1-2 byte quantized tier, then the top ``k * rerank_factor`` frontier
-entries are re-scored with full-precision distances and re-sorted. On TPU
-the quantized tier is the inline-neighbor array (4x less DMA per hop) and
-the rerank is one batched gather + distance + top-k.
+entries are re-scored with full-precision distances and re-sorted. Here
+the beam reads the quantized tier (4x fewer bytes per hop) and the rerank
+is one batched gather + distance + top-k.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Exact k-NN ground truth tool (data_tools/compute_groundtruth.cpp:104):
-parallel scan becomes tiled MXU matmuls + streaming top-k; writes the
+parallel scan becomes tiled matmuls + streaming top-k; writes the
 big-ann ibin format."""
 
 from __future__ import annotations

@@ -76,8 +76,7 @@ class BuildParams:
     rerank_factor: int = 100
     verbose: bool = False
 
-    # TPU-specific knobs (no reference analog): build batch cap fraction and
-    # insertion-beam batch size for device scheduling.
+    # no reference analog: the cap on a build batch, as a fraction of n
     batch_cap_frac: float = 0.02
     seed: int = 0
 

@@ -1,4 +1,4 @@
-"""Build-time breakdown on the real TPU: where do the 12s go?
+"""Build-time breakdown on the device: where does the build time go?
 
 Runs the r32 quickstart build twice (first run warms compiles) with
 per-batch host wall timestamps, then prints the distribution of per-batch
@@ -18,10 +18,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from parlayann_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from parlayann_tpu.types import BuildParams
     from parlayann_tpu.data.pointset import PointSet

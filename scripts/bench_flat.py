@@ -1,4 +1,4 @@
-"""Microbench flat (brute-force) search on the real TPU.
+"""Microbench flat (brute-force) search on the device.
 
 Env: BENCH_N/BENCH_D/B/K, SELECTS=sort,approx, TIERS=f32,q8.
 Prints ms per batch and QPS, plus recall vs cached GT when available.
@@ -16,10 +16,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from parlayann_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     print("devices:", jax.devices(), flush=True)
 
     from parlayann_tpu.data.pointset import PointSet

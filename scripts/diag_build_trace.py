@@ -31,12 +31,12 @@ def parse_trace(tdir, label):
         return
     with gzip.open(paths[-1], "rt") as f:
         data = json.load(f)
-    # device lanes: pid whose name mentions TPU / device
+    # device lanes: pid whose name names a device
     dev_pids = set()
     for ev in data.get("traceEvents", []):
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
             nm = ev.get("args", {}).get("name", "")
-            if "TPU" in nm or "/device:" in nm or "Chip" in nm:
+            if "/device:" in nm:
                 dev_pids.add(ev["pid"])
     tot = defaultdict(float)
     cnt = defaultdict(int)
@@ -55,10 +55,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from parlayann_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from parlayann_tpu.types import BuildParams
     from parlayann_tpu.data.pointset import PointSet

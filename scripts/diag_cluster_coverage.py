@@ -14,7 +14,7 @@ For each probe count P it prints:
                  upper bound at the same ext footprint.
 
 Compare cov(assign) to the measured fused recall at the same P
-(BENCHES.md): the gap is what better probe selection could recover; the
+(measured): the gap is what better probe selection could recover; the
 cov columns bound what better assignment could.
 
 Run: JAX_PLATFORMS=cpu python scripts/diag_cluster_coverage.py

@@ -1,7 +1,6 @@
-"""Dense-graph operating point (real TPU): the fused kernel is
-descriptor-rate bound and row size is free to ~17KB, so a denser graph
-(R=96/128) costs the SAME DMA time per hop but converges in fewer hops
-with higher recall per hop. Build + sweep to find the QPS-optimal R.
+"""Dense-graph operating point: a denser graph (R=96/128) reads more per
+hop but converges in fewer hops with higher recall per hop. Build +
+sweep to find the QPS-optimal R.
 
 Env: BENCH_N/BENCH_D/BENCH_Q, RS (comma list, default "96,128").
 """
@@ -18,10 +17,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from parlayann_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from parlayann_tpu.build.vamana import build_vamana_graph
     from parlayann_tpu.data.graph import GraphIndexData

@@ -1,4 +1,4 @@
-"""Per-phase timing of one HCNNG cluster tree on the real TPU: labels /
+"""Per-phase timing of one HCNNG cluster tree on the device: labels /
 candidate edges (pairwise + top-k) / Kruskal (host C++) / assembly.
 
 Env: BENCH_N/BENCH_D, S (cluster_size), TREES (default 2: first warms).
@@ -17,10 +17,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from parlayann_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from parlayann_tpu.data.pointset import PointSet
     from parlayann_tpu.build.cluster import cluster_tree_labels, leaf_members

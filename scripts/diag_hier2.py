@@ -4,7 +4,7 @@ Forces the hier build path at n=200K (PARLAYANN_KMEANS_EXACT_LIMIT=1)
 on the same blob family as the 10M bench (n/100 natural clusters of
 ~100) and prints, per stage: balance spill, rank distribution, fill
 percentiles, and the final coverage/recall — next to the EXACT path's
-numbers on identical data. Run on TPU; ~2-3 min.
+numbers on identical data.
 
 Env: N (200000), CAND (6), ROUNDS (3), CAP (4), SHAPE (1.5), TELE (1).
 """
@@ -22,10 +22,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    cache = os.path.abspath(
-        os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
-    jax.config.update("jax_compilation_cache_dir", cache)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from parlayann_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from parlayann_tpu.types import Metric
     from parlayann_tpu.data.pointset import PointSet

@@ -1,4 +1,4 @@
-"""pyNNDescent deviation validation (VERDICT round-2 item #8).
+"""pyNNDescent deviation validation.
 
 The repo's descent round is a pull-style SAMPLED 2-hop join
 (build/pynndescent.py:_descent_round); the reference's is a push-style

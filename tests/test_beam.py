@@ -130,31 +130,6 @@ def test_beam_mips(rng):
     assert _recall(np.asarray(ids), np.asarray(gt_ids)) >= 0.85
 
 
-def test_beam_inline_matches_gather(rng):
-    from parlayann_tpu.ops.pallas.expand import build_inline
-
-    n, d, k = 300, 16, 5
-    x = rng.standard_normal((n, d)).astype(np.float32)
-    q = rng.standard_normal((8, d)).astype(np.float32)
-    ps = PointSet.from_numpy(x)
-    g = _knn_graph(ps, 8)
-    inline = build_inline(ps.data, g.neighbors)
-    r1 = beam_search_batch(
-        jnp.asarray(q), ps.data, g.neighbors, g.degrees,
-        jnp.asarray([0], dtype=jnp.int32), None, inline,
-        metric=Metric.L2, n_valid=n, k=k, L=16, block_b=8,
-    )
-    r2 = beam_search_batch(
-        jnp.asarray(q), ps.data, g.neighbors, g.degrees,
-        jnp.asarray([0], dtype=jnp.int32),
-        metric=Metric.L2, n_valid=n, k=k, L=16, use_inline=False,
-    )
-    np.testing.assert_array_equal(np.asarray(r1.beam_ids), np.asarray(r2.beam_ids))
-    np.testing.assert_allclose(
-        np.asarray(r1.beam_dists), np.asarray(r2.beam_dists), rtol=1e-5, atol=1e-5
-    )
-
-
 def test_beam_search_random_starts(rng):
     """beamSearchRandom parity (beamSearch.h:309-351): per-query random
     starts reach island clusters a single fixed start cannot."""
@@ -170,7 +145,7 @@ def test_beam_search_random_starts(rng):
     r_fixed = beam_search_batch(
         jnp.asarray(q), ps.data, g.neighbors, g.degrees,
         jnp.asarray([0], dtype=jnp.int32),
-        metric=Metric.L2, n_valid=n, k=k, L=16, use_inline=False,
+        metric=Metric.L2, n_valid=n, k=k, L=16,
     )
     ids_fixed, _ = top_k_from_beam(r_fixed, k)
     # fixed start 0 lives in blob 1: finds nothing from blob 2
@@ -178,7 +153,7 @@ def test_beam_search_random_starts(rng):
     r_rand = beam_search_random(
         jnp.asarray(q), ps.data, g.neighbors, g.degrees,
         n_starts=8, seed=3,
-        metric=Metric.L2, n_valid=n, k=k, L=16, use_inline=False,
+        metric=Metric.L2, n_valid=n, k=k, L=16,
     )
     ids_rand, _ = top_k_from_beam(r_rand, k)
     # with 8 random starts, some land in blob 2 and the true NNs surface

@@ -1,7 +1,7 @@
 """ClusterIndex (two-level cluster beam) build + search tests.
 
-The cluster index is a TPU-native structure beyond the reference's
-component list (it composes the two-level QQ filter of beamSearch.h:119-146
+The cluster index is a structure beyond the reference's component list
+(it composes the two-level QQ filter of beamSearch.h:119-146
 with a partition, see build/clusterindex.py); these tests pin its
 contracts: the members array is an exact partition, search recall clears
 the graph-index bar on clustered data, and returned distances are true
@@ -24,7 +24,7 @@ def built():
         5000, 64, n_queries=64, n_clusters=50, cluster_std=0.35, seed=7
     )
     ps = PointSet.from_numpy(X)
-    # int8 ext pinned: the fixture tests assert the byte-plane layout
+    # int8 layout pinned: the fixture tests assert the q8 member blocks
     # and the rerank-tier distinction, both int8-mode contracts
     ci = ClusterIndex.build(ps, m=64, Rc=16, iters=3, ext_dtype="int8")
     gt_ids, gt_dists = compute_groundtruth(ps, Q, k=10, query_batch=64)
@@ -53,13 +53,17 @@ def test_adjacency_valid(built):
 
 def test_ext_row_layout(built):
     ps, _, ci, _, _ = built
-    # ext rows: member id byte planes reassemble to the members array
-    ext = np.asarray(ci.ext)
-    c = 0
-    planes = ext[c, ci.m:ci.m + 4, :ci.m].astype(np.int64) & 0xFF
-    ids = (planes[0] + (planes[1] << 8) + (planes[2] << 16)
-           + (planes[3] << 24)).astype(np.int32)
-    np.testing.assert_array_equal(ids, ci.members[c])
+    # member blocks: row c holds the q8 vectors of cluster c's members
+    # (zero in empty slots), and the device id table equals members
+    mv = np.asarray(ci.mvecs)
+    q8 = np.asarray(ci.qpoints.data)
+    assert mv.shape == (ci.C, ci.m, ps.d) and mv.dtype == np.int8
+    np.testing.assert_array_equal(np.asarray(ci.mids), ci.members)
+    np.testing.assert_array_equal(np.asarray(ci.adj_d), ci.adj)
+    for c in (0, ci.C // 2, ci.C - 1):
+        ok = ci.members[c] >= 0
+        np.testing.assert_array_equal(mv[c][ok], q8[ci.members[c][ok]])
+        assert (mv[c][~ok] == 0).all()
 
 
 def test_search_recall(built):
@@ -138,7 +142,8 @@ def test_save_load_roundtrip(built, tmp_path):
     ci2 = ClusterIndex.load(p, ps)
     np.testing.assert_array_equal(ci2.members, ci.members)
     np.testing.assert_array_equal(ci2.adj, ci.adj)
-    np.testing.assert_array_equal(np.asarray(ci2.ext), np.asarray(ci.ext))
+    np.testing.assert_array_equal(np.asarray(ci2.mvecs),
+                                  np.asarray(ci.mvecs))
     ids, _, _ = ci2.search(Q, k=10, n_probe=8, cut=0.0)
     rec = compute_recall(np.asarray(ids), gt_ids, gt_dists, 10)
     assert rec >= 0.93
@@ -151,7 +156,7 @@ def test_api_validation():
     with pytest.raises(ValueError):
         pt.build_cluster_index(X, m=63)  # not a multiple of 8
     with pytest.raises(ValueError):
-        pt.build_cluster_index(X, m=128)  # d < m
+        pt.build_cluster_index(X, Rc=4)  # below the 8-lane minimum
     with pytest.raises(ValueError):
         pt.build_cluster_index(X, metric="cosine")
     ci = pt.build_cluster_index(X, m=32, Rc=8, iters=2)
@@ -177,8 +182,8 @@ def test_mips_smoke():
 
 
 def test_odd_batch_sizes(built):
-    """Regression: block_b must round to a multiple of the DMA group G —
-    a 24-query batch used to leave rows 16-23 unprocessed (all -1)."""
+    """Batches of any size return full results, identical to the same
+    rows of a larger batch (queries are independent)."""
     _, Q, ci, gt_ids, gt_dists = built
     for B in (24, 40, 100):
         ids, _, _ = ci.search(Q[:B], k=10, n_probe=8, cut=0.0)
@@ -307,7 +312,7 @@ def test_meta_seed_matches_argmin(monkeypatch):
     quantizer instead of streaming all C centroids. Forcing the cutoff
     tiny at small C must populate seed_meta and deliver the same recall
     class as the exact argmin seed."""
-    from parlayann_tpu.ops.pallas import clusterbeam as cb
+    from parlayann_tpu.search import cluster as cb
 
     X, Q = synthetic.clustered(
         5000, 64, n_queries=64, n_clusters=50, cluster_std=0.35, seed=7

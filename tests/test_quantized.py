@@ -1,6 +1,7 @@
 """Quantized search tier + rerank (beamSearch.h:394-454 semantics)."""
 
 import numpy as np
+import pytest
 
 from parlayann_tpu.types import BuildParams
 from parlayann_tpu.data.pointset import PointSet
@@ -34,8 +35,8 @@ def test_quantized_search_with_rerank(rng):
     ids_q, dists_q, _ = idx_q.batch_search(Q, k=k, beam_size=40, rerank_factor=10)
     rec_q = _recall(np.asarray(ids_q), gt)
 
-    # the quantized inline tier is 1 byte/dim
-    assert idx_q.build_inline_cache().dtype == np.int8
+    # the quantized search tier is 1 byte/dim
+    assert idx_q.qpoints.data.dtype == np.int8
     # rerank restores most of the full-precision recall
     assert rec_q >= rec_f - 0.03, (rec_q, rec_f)
     # reranked dists are true full-precision distances, ascending
@@ -206,3 +207,58 @@ def test_jl_tier_search(rng):
     idss, _, _ = idxs.batch_search(Q, k=k, beam_size=64, rerank_factor=10)
     recs = _recall(np.asarray(idss), gt)
     assert recs >= 0.55, recs
+
+
+@pytest.mark.parametrize("tier", ["f32", "q8"])
+@pytest.mark.parametrize("start", ["medoid", "entry"])
+def test_index_route_matches_beam_and_rerank(rng, tier, start):
+    """Index.batch_search (one jitted program: translate -> beam -> rerank)
+    returns exactly what the plain pieces return when called by hand:
+    the start vertex (medoid or the sampled entry tier's exact top-1),
+    beam_search_batch on the search tier, then rerank_topk (q8) or the
+    beam's own top-k (f32)."""
+    import jax.numpy as jnp
+
+    from parlayann_tpu.index import _entry_top1
+    from parlayann_tpu.ops import quantize
+    from parlayann_tpu.search.beam import beam_search_batch, top_k_from_beam
+    from parlayann_tpu.search.rerank import rerank_topk
+    from parlayann_tpu.types import QueryParams
+
+    n, d, k, L = 1200, 24, 10, 40
+    X = rng.standard_normal((n, d)).astype(np.float32)
+    Q = rng.standard_normal((48, d)).astype(np.float32)
+    ps = PointSet.from_numpy(X)
+    g, _ = build_vamana_graph(
+        ps, BuildParams(R=16, L=32, alpha=1.2, num_passes=1,
+                        batch_cap_frac=0.25))
+    idx = Index(points=ps, graph=g)
+    if tier == "q8":
+        idx.enable_quantized(bits=8)
+    if start == "entry":
+        idx.entry_min_n = 0
+        idx.build_entry_cache(E=256)
+    else:
+        idx.use_entry = False
+    ids, dists, _ = idx.batch_search(Q, k=k, beam_size=L)
+
+    qp = QueryParams(k=k, beamSize=L).resolved(g.max_degree, n)
+    qf = jnp.asarray(Q)
+    starts = (_entry_top1(qf, idx.entry_vecs, idx.entry_ids, metric=ps.metric)
+              if start == "entry" else jnp.asarray([0], jnp.int32))
+    tps = idx.qpoints if tier == "q8" else ps
+    qt = (quantize.euclidean_translate(qf, tps.quant_slope, tps.quant_offset,
+                                       8).astype(jnp.float32)
+          if tier == "q8" else qf)
+    res = beam_search_batch(
+        qt, tps.data, g.neighbors, g.degrees, starts, metric=ps.metric,
+        n_valid=n, k=k, L=L, cut=qp.cut, limit=qp.limit,
+        degree_limit=qp.degree_limit,
+    )
+    if tier == "q8":
+        want_i, want_d = rerank_topk(qf, ps.data, res.beam_ids, k=k,
+                                     pool=min(10 * k, L), metric=ps.metric)
+    else:
+        want_i, want_d = top_k_from_beam(res, k)
+    np.testing.assert_array_equal(np.asarray(ids), np.asarray(want_i))
+    np.testing.assert_array_equal(np.asarray(dists), np.asarray(want_d))

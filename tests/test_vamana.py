@@ -148,34 +148,6 @@ def test_vamana_single_batch_mode(rng):
     assert recall >= 0.85, recall
 
 
-def test_vamana_build_inline_read_phase(rng, monkeypatch):
-    """PARLAYANN_BUILD_INLINE=1 routes the steady-batch read phase through
-    the Pallas inline-expand kernel (interpret mode on CPU). The graph must
-    deliver the same recall class as the XLA-gather path — the kernel
-    computes identical f32 distances, only the fetch path differs."""
-    monkeypatch.setenv("PARLAYANN_BUILD_INLINE", "1")
-    n, d, k = 1000, 24, 10
-    X = rng.standard_normal((n, d)).astype(np.float32)
-    Q = rng.standard_normal((40, d)).astype(np.float32)
-    ps = PointSet.from_numpy(X)
-    bp = BuildParams(R=16, L=32, alpha=1.2, num_passes=2, batch_cap_frac=0.25)
-    graph, _ = build_vamana_graph(ps, bp)
-    avg_deg, max_deg = graph.stats()
-    assert max_deg <= 16 and avg_deg > 4
-    gt_ids, _ = exact.exact_knn(Q, ps, k, chunk=128)
-    res = beam_search_batch(
-        jnp.asarray(Q), ps.data, graph.neighbors, graph.degrees,
-        jnp.zeros((1,), jnp.int32),
-        metric=Metric.L2, n_valid=n, k=k, L=48,
-    )
-    ids, _ = top_k_from_beam(res, k)
-    recall = sum(
-        len(set(a.tolist()) & set(b.tolist()))
-        for a, b in zip(np.asarray(ids), np.asarray(gt_ids))
-    ) / (40 * k)
-    assert recall >= 0.9, f"inline-build recall {recall}"
-
-
 def test_mips_end_to_end_sparse_bytes(rng):
     """MIPS e2e regression (VERDICT r3 #7): canonical config (normalize +
     q8 build tier + alpha<=1) on SIFT-like sparse byte data must deliver
